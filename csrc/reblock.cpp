@@ -1,7 +1,7 @@
 // Native on-the-fly reblocking cascade.
 //
 // The reference implements this streaming doubling cascade as a
-// numba-jitted kernel (reference: stats/reblock.py:524-604).  On the TPU
+// numba-jitted kernel (reference: stats/reblock.py:524-604).  In this
 // framework it is a host-side (CPU) computation feeding the block
 // statistics; this C++ implementation replaces numba for large series.
 //

@@ -350,8 +350,8 @@ def luttinger_parameter_from_obdm(offsets: np.ndarray, n1: np.ndarray,
 
     Accuracy caveat (measured): the OBDM is off-diagonal, so even the
     forward-walking estimator retains a trial-wavefunction remnant
-    that FLATTENS the tail (overestimating K) — a near-TG hardware run
-    (gamma = 32, v5e) fit K = 1.32(1) against the exact 1 (finite-
+    that FLATTENS the tail (overestimating K) — a near-TG f32 run
+    (gamma = 32) fit K = 1.32(1) against the exact 1 (finite-
     gamma ~1.13), and subleading ``cos(2 pi n r) d^{-K/2-1/(2K)}``
     oscillations bias a pure power fit further.  Treat the OBDM-tail K
     as an upper-bound diagnostic; for quantitative K prefer the

@@ -6,9 +6,7 @@ functions.  The reference implements these as numba scalar kernels with
 explicit O(N^2) loops (``/root/reference/src/phd_qmclib/qmc_base/jastrow/
 model.py:286-1004``); here every kernel is a pure, batched JAX function
 over position arrays of shape ``(..., N)`` - the pairwise loops become
-broadcasted ``(..., N, N)`` element-wise ops fused by XLA (a Pallas-tiled
-variant of the fused energy/drift kernel lives in
-``phd_qmclib_tpu.ops.pairwise``).
+broadcasted ``(..., N, N)`` element-wise ops fused by XLA.
 
 Naming note carried over from the reference: the ``*_log_dz`` callables
 return the log-derivative ``f'/f`` while the ``*_log_dz2`` callables
@@ -21,7 +19,7 @@ With that convention the local energy identity used throughout is::
 
 Parameters travel in a ``CFCParams`` pytree of continuous values; static
 structure (particle number, free/ideal flags, defect period) binds at
-function-construction time so XLA sees compile-time constants - the TPU
+function-construction time so XLA sees compile-time constants - the JAX
 analog of the reference's closure-compiled kernel factories
 (``qmc_base/vmc.py:556-648``).
 """
@@ -40,11 +38,7 @@ __all__ = ["CFCParams", "build_core_funcs", "SysConfSlot"]
 #: Element budget per pairwise tile: batches whose (B, N, N) pair block
 #: would exceed this evaluate as a ``lax.map`` over walker tiles so the
 #: temporaries stay bounded (67M elements = ~268 MB per f32 temporary).
-#: Swept on v5e at 17408 x 128 with the polynomial-sincos pair terms:
-#: the isolated pairwise pass mildly prefers 1024-walker tiles (4.70 vs
-#: 5.08 ms) but the full sampler step ties (2.67M walker-steps/s both) -
-#: the scan overlaps the extra HBM traffic - so the larger tile stays
-#: for its steadier timings and fewer dispatches.
+#: Not yet measured on the GPU (ROADMAP A3).
 PAIR_TILE_ELEMS = 4096 * 128 * 128
 
 
@@ -156,11 +150,10 @@ def build_core_funcs(*,
         r = jnp.where(off_diag, jnp.abs(d), 0.25 * sc)
         return d, r, off_diag
 
-    # NOTE (perf): a half-pair formulation (N/2 lane rotations visiting
-    # each unordered pair once) was benchmarked and LOST to the fused
-    # full (N, N) broadcast below on TPU (434k vs 857k walker-steps/s at
-    # N=128): many small sequential ops defeat XLA fusion, while the
-    # full pair block compiles to one fused pass.
+    # NOTE (perf): a half-pair formulation (N/2 rotations visiting each
+    # unordered pair once) needs many small sequential ops that defeat
+    # XLA fusion, while the full (N, N) pair block below compiles to one
+    # fused pass.
 
     # -- log |psi| --------------------------------------------------------
     def log_psi(pos, cfc: CFCParams):
@@ -505,15 +498,10 @@ def build_core_funcs(*,
         cos((j-1)t)`` (same for sin): ONE sincos on ``(..., N)`` plus two
         fmas per extra mode, instead of a sincos on ``(..., N, M)`` -
         ~M-fold fewer transcendentals in the estimator hot path.
-        The mode scan runs with ``unroll=4``: the pass is HBM-bound on
-        re-reading ``(cos t, sin t)`` and the four carries each mode,
-        and fusing 4 modes per pass cuts that traffic (measured
-        1.49 -> 1.08 ms at (17408, 128) x 64 modes on v5e; unroll=8
-        ties, full unroll and walker tiling regress).  An
-        MXU-factorized variant (``e^{ijt} = e^{iqRt} e^{irt}``, Gram
-        blocks via batched matmul) was measured 2x SLOWER (2.87 ms) —
-        the per-walker ``16x128 @ 128x16`` matmuls leave the MXU ~2%
-        utilized.  Returns ``(..., num_modes, 3)``.
+        The mode scan runs with ``unroll=4``: the pass re-reads
+        ``(cos t, sin t)`` and the four carries each mode, and fusing
+        4 modes per pass cuts that memory traffic.  Returns
+        ``(..., num_modes, 3)``.
         """
         def mode_sums(c, s):
             re = c.sum(axis=-1)
@@ -556,7 +544,7 @@ def build_core_funcs(*,
         only reachable there by Fourier-inverting the truncated S(k)
         (cf. ``analysis.pair_correlation_from_ssf``); this kernel gives
         the real-space histogram exactly, with no mode cutoff.  Counts
-        use the MXU-factorized one-hot histogram (``ops/histogram.py``)
+        use the factorized one-hot histogram (``ops/histogram.py``)
         over the ``(.., N, N)`` distance matrix: the N exact-zero
         diagonal entries land in bin 0 and are subtracted, and the
         double-counted unordered pairs are halved — both exact in

@@ -9,7 +9,7 @@ A 1D Bose gas with repulsive contact interactions in a multi-rod
   inside a variational cutoff ``rm`` matched to ``sin(pi r/L)^beta``
   outside.
 
-TPU-native re-design of the reference model
+JAX re-design of the reference model
 (``/root/reference/src/phd_qmclib/mrbp_qmc/model.py``): the spec is a
 frozen host-side dataclass whose derived parameters (ideal-gas band
 energy, two-body matching constants solved with ``brentq``) are computed
@@ -664,9 +664,8 @@ def _two_body_log_dz2(rz, cfc: CFCParams):
     return jnp.where(in_cutoff, inside, outside)
 
 
-# Reduced-range trig polynomials — shared single source with the
-# Pallas shadow kernel and the PRNG kernel (see ops/trig.py for the
-# coefficient provenance and accuracy measurements).
+# Reduced-range trig polynomials (see ops/trig.py for the coefficient
+# provenance and accuracy measurements).
 _sincos_poly32 = trig.sincos_poly32
 _tancot_poly32 = trig.tancot_poly32
 
@@ -685,8 +684,8 @@ def _two_body_pair_terms(rz, cfc: CFCParams, need_log: bool = True,
                                         + ((pi/L) b cot)^2
 
     i.e. ``kin = C (1 + v^2)`` with one branch-selected constant -
-    three fewer VPU ops per pair than assembling ``-ldz2 + ldz^2``
-    from the separate pieces in the O(N^2) hot loop.
+    three fewer arithmetic ops per pair than assembling
+    ``-ldz2 + ldz^2`` from the separate pieces in the O(N^2) hot loop.
 
     Both branches of the phonon pair function are trigonometric:
     ``f2 = am*cos(k2(r - r_off))`` inside the cutoff and
@@ -712,11 +711,9 @@ def _two_body_pair_terms(rz, cfc: CFCParams, need_log: bool = True,
 
     in_cut = rz < jnp.abs(rm)
     # Branch-constant fma: arg = a*r + b with (a, b) selected once,
-    # instead of selecting between two fully-computed arguments —
-    # measured 5% on the whole fused DMC kernel at 17408 x 128 on v5e
-    # (4.34 -> 4.13 ms; the select-of-products form cost an extra
-    # multiply per pair and fused worse).  Rounding differs from
-    # k2*(r - r_off) by <= 1 ulp; all oracle/golden/replay tests hold.
+    # instead of selecting between two fully-computed arguments (one
+    # multiply per pair fewer).  Rounding differs from k2*(r - r_off)
+    # by <= 1 ulp; all oracle/golden/replay tests hold.
     arg_a = jnp.where(in_cut, k2, jnp.pi / sc_size)
     arg_b = jnp.where(in_cut, -k2 * r_off, 0.0)
     arg = arg_a * rz + arg_b
@@ -810,29 +807,20 @@ def _make_potential(defects_sep: int):
     return _potential
 
 
-def core_funcs(spec_or_static,
-               pairwise_impl: str = "xla") -> "jastrow.SimpleNamespace":
+def core_funcs(spec_or_static) -> "jastrow.SimpleNamespace":
     """Build the mrbp kernel namespace for a spec (or a StaticSpec).
 
     The returned functions take ``(pos, cfc_params)`` with ``pos`` of
     shape ``(..., N)`` and the continuous parameters as a pytree, so a
     wavefunction optimizer can vary ``rm`` without retracing.
-
-    ``pairwise_impl``: "xla" (default) or "pallas" - route the fused
-    hot kernels through the hand-written Pallas TPU kernel
-    (``ops/pairwise.py``).  Measured equal in throughput on v5e (both
-    formulations are VPU compute-bound and fully fused); the Pallas
-    path requires f32, N <= 128 and a flat, tile-aligned walker batch,
-    and falls back to XLA otherwise.
     """
     static = (spec_or_static.static_spec
               if isinstance(spec_or_static, Spec) else spec_or_static)
-    return _core_funcs_cached(static, pairwise_impl)
+    return _core_funcs_cached(static)
 
 
 @functools.lru_cache(maxsize=64)
-def _core_funcs_cached(static: "StaticSpec",
-                       pairwise_impl: str) -> "jastrow.SimpleNamespace":
+def _core_funcs_cached(static: "StaticSpec") -> "jastrow.SimpleNamespace":
     """One kernel namespace per compile-time structure.
 
     The namespace (and with it every ``jax.jit`` cache inside it) is
@@ -856,50 +844,7 @@ def _core_funcs_cached(static: "StaticSpec",
         boson_number=static.boson_number,
     )
     funcs.static_spec = static
-
-    if pairwise_impl == "pallas":
-        from ..ops import pairwise as pairwise_ops
-
-        tw = 32
-        xla_energy_and_drift = funcs.energy_and_drift
-        xla_log_psi_and_energy = funcs.log_psi_and_energy
-        nop = static.boson_number
-
-        def _pallas_ok(pos):
-            return (pairwise_ops.supports(nop, pos.dtype)
-                    and pos.ndim == 2 and pos.shape[0] % tw == 0
-                    and not static.is_free and not static.is_ideal)
-
-        def energy_and_drift(pos, cfc):
-            if not _pallas_ok(pos):
-                return xla_energy_and_drift(pos, cfc)
-            vec = pairwise_ops.pack_params_traced(cfc)
-            return pairwise_ops.energy_and_drift_pallas(
-                pos, vec, nop=nop, is_free=static.is_free,
-                is_ideal=static.is_ideal,
-                defects_sep=static.defects_sep, tw=tw,
-                interpret=_PALLAS_INTERPRET)
-
-        def log_psi_and_energy(pos, cfc):
-            if not _pallas_ok(pos):
-                return xla_log_psi_and_energy(pos, cfc)
-            vec = pairwise_ops.pack_params_traced(cfc)
-            lp, e, _ = pairwise_ops.energy_and_drift_pallas(
-                pos, vec, nop=nop, is_free=static.is_free,
-                is_ideal=static.is_ideal,
-                defects_sep=static.defects_sep, tw=tw,
-                with_log_psi=True, interpret=_PALLAS_INTERPRET)
-            return lp, e
-
-        funcs.energy_and_drift = energy_and_drift
-        funcs.log_psi_and_energy = log_psi_and_energy
-    elif pairwise_impl != "xla":
-        raise ValueError(f"unknown pairwise_impl {pairwise_impl!r}")
     return funcs
-
-
-#: Test hook: run the Pallas kernels in interpreter mode (CPU).
-_PALLAS_INTERPRET = False
 
 
 @dataclass(frozen=True)
@@ -907,7 +852,7 @@ class PhysicalFuncs:
     """Batch evaluation of the main physical properties for a model spec.
 
     The reference wraps its scalar kernels in ``guvectorize`` batch
-    dispatchers (``qmc_base/jastrow/model.py:1007-1122``); the TPU
+    dispatchers (``qmc_base/jastrow/model.py:1007-1122``); the JAX
     kernels are natively batched, so this class just binds a spec's
     parameters and jits.  Inputs may be single configurations ``(N,)``,
     packed ``(2, N)`` buffers, or batches with leading axes.

@@ -10,15 +10,14 @@ two commands:
 * ``start CONFIG`` - load a YAML/TOML config and execute its
   ``app_spec`` procedures.
 """
+import functools
 import os
 import pathlib
 import socket
 from math import pi
 
-import click
-
+from . import utils
 from .qmc_exec import cli_app, config
-from .utils import now
 
 # Load a .env file when python-dotenv is available (reference CLIs do,
 # ``mrbp_qmc/dmc_cli.py:26``); silently optional.
@@ -39,9 +38,6 @@ TEMPLATE_VARS = {
     "K_OPT": pi,
 }
 
-config_path_type = click.Path(exists=True)
-output_path_type = click.Path(exists=False)
-
 #: Module-level loader singleton (``mrbp_qmc/dmc_exec/config.py:1-10``).
 loader = config.Loader()
 
@@ -49,18 +45,23 @@ loader = config.Loader()
 def gen_filename(prefix: str, ext: str = "yml") -> str:
     """Dated, hostname-tagged config filename
     (``mrbp_qmc/dmc_cli.py:67-81``)."""
-    now_ = now()
+    now_ = utils.now()
     date_id = now_.strftime("%Y-%m-%d")
     time_id = now_.strftime("%H-%M-%S.%fus")
     hostname = socket.gethostname()
     return f"{prefix}-conf_{date_id}_{time_id}@{hostname}.{ext}"
 
 
+@functools.cache
 def _make_cli(sampling_type: str, prefix: str):
+    click = utils.require("click", "The command-line interface")
+    config_path_type = click.Path(exists=True)
+    output_path_type = click.Path(exists=False)
+
     @click.group()
     def cli():
         """CLI to execute a QMC calculation for a 1D Bose gas in a
-        multi-rod lattice (TPU-native)."""
+        multi-rod lattice."""
 
     @cli.command(name="proc-template")
     @click.argument("template", type=config_path_type)
@@ -304,12 +305,20 @@ def _make_cli(sampling_type: str, prefix: str):
     return cli
 
 
-dmc_cli = _make_cli("dmc", "mrbp-dmc")
-vmc_cli = _make_cli("vmc", "mrbp-vmc")
+_CLIS = {"dmc_cli": ("dmc", "mrbp-dmc"), "vmc_cli": ("vmc", "mrbp-vmc")}
+
+
+def __getattr__(name):
+    # The click command groups are built on first access, so importing
+    # this module needs no click.
+    if name in _CLIS:
+        return _make_cli(*_CLIS[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 if __name__ == "__main__":  # pragma: no cover
     import sys
 
     which = sys.argv[1] if len(sys.argv) > 1 else "dmc"
     sys.argv = [sys.argv[0]] + sys.argv[2:]
-    (dmc_cli if which == "dmc" else vmc_cli)()
+    __getattr__("vmc_cli" if which == "vmc" else "dmc_cli")()

@@ -1,50 +1,35 @@
 """Per-walker position histogram without the (W, N, bins) intermediate.
 
 The DMC density estimator needs ``hist[w, b] = #{i : bin(z_wi) = b}``
-per step.  An XLA scatter costs as much as the whole pairwise pass
-(15 ms at 17k x 128 on v5e — rejected round 1); the one-hot
-compare-and-reduce (``(bins[:, :, None] == iota).sum(axis=1)``) fuses
-the compute but XLA materializes the ``(W, N, B)`` broadcast —
-1.1 GB of HBM traffic at the production shape, ~0.83 ms/step.
+per step.  An XLA scatter-add serializes on duplicate bin indices, and
+the one-hot compare-and-reduce (``(bins[:, :, None] == iota).sum(axis=1)``)
+materializes the ``(W, N, B)`` broadcast — about 1.1 GB at the
+production shape (17408 walkers x 128 particles x 128 bins, f32).
 
 The production path is :func:`walker_histogram_mxu`: factorize the bin
 id as ``b = q * R + r`` and the one-hot as a product of two narrow
-one-hots, so the count becomes a batched matmul on the MXU::
+one-hots, so the count becomes a batched matmul::
 
     hist[w, q*R + r] = sum_i [q_wi == q] * [r_wi == r]
                      = einsum('wiq,wir->wqr', A, B)
 
 The ``(W, N, Q)`` / ``(W, N, R)`` compare factors are ~5x smaller than
-the full one-hot, the contraction runs on the MXU instead of the VPU,
-and counts are exact small integers so the result is BIT-IDENTICAL to
-the one-hot formulation (asserted in ``tests/ops/test_histogram.py``).
-Measured on v5e at (17408, 128) x 128 bins in a scan: one-hot 830 us,
-MXU 277 us per step (R-split sweep: 32 best, 8/16 within 10%).
-
-A Pallas compare-reduce kernel (:func:`walker_histogram_pallas`) was
-also validated — bit-identical, ~free in isolation — but REJECTED for
-the sampler: inside the estimator scan the custom call breaks XLA's
-fusion of the surrounding graph and the step REGRESSES (estimators-on
-K=1 2.28M -> 1.50M ws/s; same-session git-stash A/B).  Third
-confirmation that isolated-kernel wins do not survive a
-``pallas_call`` fusion barrier in this op-count-bound step; kept as
-the recorded dead end + a bit-exactness harness.
+the full one-hot, and counts are exact small integers so the result is
+BIT-IDENTICAL to the one-hot formulation (asserted in
+``tests/ops/test_histogram.py``).
 """
-import functools
 import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 __all__ = ["walker_histogram", "walker_histogram_mxu",
-           "walker_histogram_onehot", "available"]
+           "walker_histogram_onehot"]
 
 
 def walker_histogram_onehot(pos, bin_size, num_bins: int):
     """Reference formulation: fused one-hot compare-and-reduce
-    (the round-1 winner over XLA scatter; materializes ``(W, N, B)``)."""
+    (materializes ``(W, N, B)``)."""
     bins = jnp.clip((pos // bin_size).astype(jnp.int32), 0, num_bins - 1)
     bin_ids = jnp.arange(num_bins, dtype=jnp.int32)
     onehot = (bins[..., :, None] == bin_ids).astype(pos.dtype)
@@ -65,77 +50,22 @@ def walker_histogram_mxu(pos, bin_size, num_bins: int, r_split: int = 32):
     bq = bins // r
     br = bins % r
     # The factors are exact 0/1, so on f32 inputs they travel as bf16
-    # (half the HBM bytes, double the MXU rate) while the accumulation
-    # stays f32 — counts remain EXACT integers (each dot sums <= N
-    # ones), bit-identical to the f32-factor form.
+    # (half the bytes) while the accumulation stays f32 — counts remain
+    # EXACT integers (each dot sums <= N ones), bit-identical to the
+    # f32-factor form.
     fdtype = jnp.bfloat16 if pos.dtype == jnp.float32 else pos.dtype
     fq = (bq[..., :, None]
           == jnp.arange(q, dtype=jnp.int32)).astype(fdtype)
     fr = (br[..., :, None]
           == jnp.arange(r, dtype=jnp.int32)).astype(fdtype)
+    # 0/1 factors and integer sums are exact under any matmul precision.
     hqr = jnp.einsum("...iq,...ir->...qr", fq, fr,
-                     preferred_element_type=pos.dtype)
+                     preferred_element_type=pos.dtype,
+                     precision=jax.lax.Precision.DEFAULT)
     return hqr.reshape(pos.shape[:-1] + (q * r,))[..., :num_bins]
 
 
-def _hist_kernel(pos_ref, scale_ref, out_ref, *, num_bins: int,
-                 col_tile: int):
-    pos = pos_ref[...]
-    bin_size = scale_ref[0, 0]
-    # floor(z / bin_size), matching the one-hot path's ``//`` exactly
-    # (a multiply-by-reciprocal can differ by an ulp AT a bin edge).
-    bins = jnp.clip(jnp.floor(pos / bin_size).astype(jnp.int32),
-                    0, num_bins - 1)
-    # Compare-reduce the bin ids against ``col_tile`` bin columns at a
-    # time: (TW, N, col_tile) stays register/VMEM resident.
-    for b0 in range(0, num_bins, col_tile):
-        ct = min(col_tile, num_bins - b0)
-        ids = jax.lax.broadcasted_iota(jnp.int32, (1, 1, ct), 2) + b0
-        block = (bins[:, :, None] == ids).astype(out_ref.dtype)
-        out_ref[:, b0:b0 + ct] = block.sum(axis=1)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("num_bins", "tw", "col_tile",
-                                    "interpret"))
-def walker_histogram_pallas(pos, bin_size, num_bins: int, tw: int = 128,
-                            col_tile: int = 8, interpret: bool = False):
-    """``(W, num_bins)`` per-walker histogram of ``pos (W, N)``.
-
-    ``bin_size`` may be a traced scalar (the supercell over the bin
-    count); bin assignment matches ``floor(z / bin_size)`` exactly for
-    the in-range positions the sampler guarantees (recast keeps
-    ``z in [0, L)``).  REJECTED for the sampler hot path — see the
-    module docstring; retained as the measured dead end.
-    """
-    w, n = pos.shape
-    tw = min(tw, w)
-    while w % tw:
-        tw -= 1
-    bs = jnp.asarray(bin_size, dtype=pos.dtype).reshape(1, 1)
-    kernel = functools.partial(_hist_kernel, num_bins=num_bins,
-                               col_tile=min(col_tile, num_bins))
-    return pl.pallas_call(
-        kernel,
-        grid=(w // tw,),
-        in_specs=[
-            pl.BlockSpec((tw, n), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_shape=jax.ShapeDtypeStruct((w, num_bins), pos.dtype),
-        out_specs=pl.BlockSpec((tw, num_bins), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(pos, bs)
-
-
 def walker_histogram(pos, bin_size, num_bins: int):
-    """Production entry point: the MXU-factorized formulation (pure
-    XLA, exact, fastest measured on TPU; also exact on CPU f64)."""
+    """Production entry point: the factorized formulation (plain XLA,
+    exact in f32 and f64)."""
     return walker_histogram_mxu(pos, bin_size, num_bins)
-
-
-def available() -> bool:
-    return jax.default_backend() not in ("cpu",)

@@ -3,7 +3,7 @@
 Vectorized JAX counterparts of the reference scalar kernels
 (``/root/reference/src/phd_qmclib/qmc_base/utils.py:24-66``).  All
 functions broadcast over arbitrary batch shapes and are dtype-polymorphic
-(float32 on TPU, float64 in CPU parity tests).
+(float32 in production runs, float64 in CPU parity tests).
 """
 import jax.numpy as jnp
 

@@ -1,10 +1,7 @@
 """Reduced-range trig polynomials shared by the hot kernels.
 
 Single source of truth for the coefficient tuples and the fused pair
-evaluators used by the production XLA path (``models/mrbp``), the
-retired-but-live Pallas shadow (``ops/pairwise``), and the hardware-PRNG
-Box-Muller kernel (``ops/prng``).  Keeping one copy removes the
-double-maintenance drift surface ``docs/DESIGN.md`` §6 warns about.
+evaluators used by the production XLA path (``models/mrbp``).
 
 All evaluators assume the caller guarantees the reduced domain
 ``(-pi/2, pi/2]`` — no range reduction here.
@@ -38,8 +35,8 @@ TAN_Q_COEFFS = (1.0, -0.46153846153846154, 2.3310023310023310e-02,
 
 def sincos_poly32(x):
     """(sin x, cos x) for ``x`` in ``(-pi/2, pi/2]`` via reduced-range
-    polynomials - cheaper than two library transcendentals on the TPU
-    VPU, accurate to ~1 f32 ULP."""
+    polynomials (one shared ``x^2``, no range reduction), accurate to
+    ~1 f32 ULP."""
     z2 = x * x
     s = jnp.float32(SIN_COEFFS[-1])
     c = jnp.float32(COS_COEFFS[-1])

@@ -2,14 +2,14 @@
 
 The mrbp QMC problem has exactly one large axis - the walker ensemble -
 so the parallel layout is a 1D mesh with the walker axis sharded across
-every chip (the TPU analog of the reference's ``numba.prange`` over
-walkers, ``qmc_base/jastrow/dmc.py:892``).  Per step, the only cross-chip
-traffic is the scalar ``psum`` of ensemble energy/weight for the
-population controller plus the per-block estimator reductions - all tiny
-and riding the ICI.  There is no parameter state to shard (the model has
-O(10) scalar parameters), so TP/PP/SP/EP axes do not apply; the natural
-second axis for multi-pod runs is a *parameter sweep* axis (independent
-model specs per mesh row).
+every device (the JAX analog of the reference's ``numba.prange`` over
+walkers, ``qmc_base/jastrow/dmc.py:892``).  Per step, the only
+cross-device traffic is the scalar ``psum`` of ensemble energy/weight
+for the population controller plus the per-block estimator reductions -
+all tiny.  There is no parameter state to shard (the model has O(10)
+scalar parameters), so TP/PP/SP/EP axes do not apply; the natural
+second axis is a *parameter sweep* axis (independent model specs per
+mesh row).
 """
 import typing as t
 

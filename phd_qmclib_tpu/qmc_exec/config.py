@@ -10,8 +10,10 @@ import tomllib
 import typing as t
 from dataclasses import dataclass
 
-import jinja2
-import yaml
+from .. import utils
+
+if t.TYPE_CHECKING:
+    import jinja2
 
 __all__ = ["Loader", "Template"]
 
@@ -39,6 +41,7 @@ class Loader:
             raise IOError("unknown file extension")
 
         if suffix in YAML_EXTENSIONS:
+            yaml = utils.require("yaml", "YAML configs")
             with path.open("r") as fp:
                 config_data = yaml.safe_load(fp)
         else:
@@ -113,7 +116,8 @@ class Template:
         return self.path.parent
 
     @property
-    def environ(self) -> jinja2.Environment:
+    def environ(self) -> "jinja2.Environment":
+        jinja2 = utils.require("jinja2", "Config templates")
         loader = jinja2.FileSystemLoader([str(self.dirname), os.getcwd()],
                                          followlinks=True)
         return jinja2.Environment(loader=loader, trim_blocks=True,
@@ -129,6 +133,7 @@ class Template:
             "template_name": self.path.stem,
             "config_filename": config_path.stem,
         })
+        yaml = utils.require("yaml", "Config templates")
         config = yaml.safe_load(self.render(context))
         with config_path.open("w", encoding="utf-8",
                               newline=UNIX_NEWLINE) as config_file:

@@ -10,10 +10,12 @@ import typing as t
 from collections.abc import Mapping
 from dataclasses import dataclass
 
-import h5py
 import numpy as np
 
 from ...stats import reblock
+
+if t.TYPE_CHECKING:
+    import h5py
 
 __all__ = [
     "CMDiffusionBlocks",
@@ -142,12 +144,12 @@ class PropBlocks(Mapping):
         return reblock.OTFObject.from_non_obj_data(
             self.totals * self.weight_totals)
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         group.create_dataset("totals", data=self.totals)
         group.create_dataset("weight_totals", data=self.weight_totals)
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(totals=group.get("totals")[()],
                    weight_totals=group.get("weight_totals")[()])
 
@@ -203,11 +205,11 @@ class UnWeightedPropBlocks(Mapping):
     def reblock(self):
         return reblock.OTFObject.from_non_obj_data(self.totals)
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         group.create_dataset("totals", data=self.totals)
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(totals=group.get("totals")[()])
 
     def __getitem__(self, index):
@@ -541,14 +543,14 @@ class SSFBlocks:
                                     self.mean_error / boson_number,
                                     num_modes=num_modes)
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         self.fdk_sqr_abs_part.hdf5_export(
             group.require_group("fdk_sqr_abs"))
         self.fdk_real_part.hdf5_export(group.require_group("fdk_real"))
         self.fdk_imag_part.hdf5_export(group.require_group("fdk_imag"))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(
             SSFPartBlocks.from_hdf5_data(group.get("fdk_sqr_abs")),
             SSFPartBlocks.from_hdf5_data(group.get("fdk_real")),
@@ -629,13 +631,13 @@ class CMDiffusionBlocks:
         _, cov = np.polyfit(tau[start:], w2_mean[start:], 1, cov=True)
         return half_n * slope, half_n * float(np.sqrt(cov[0, 0]))
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         group.create_dataset("w2_series", data=np.asarray(self.w2_series))
         group.attrs["tau_step"] = self.tau_step
         group.attrs["boson_number"] = self.boson_number
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(group.get("w2_series")[()],
                    float(group.attrs["tau_step"]),
                    int(group.attrs["boson_number"]))
@@ -1023,7 +1025,7 @@ class ITCBlocks:
                     fac * ((np.asarray(peaks) - mu) ** 2).sum())
         return out
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         group.create_dataset("lag_sums", data=np.asarray(self.lag_sums))
         group.create_dataset("lag_counts",
                              data=np.asarray(self.lag_counts))
@@ -1032,7 +1034,7 @@ class ITCBlocks:
         group.attrs["supercell_size"] = self.supercell_size
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(group.get("lag_sums")[()],
                    group.get("lag_counts")[()],
                    float(group.attrs["tau_step"]),
@@ -1098,7 +1100,7 @@ class PropsDataSeries:
     def accum_energy(self):
         return np.asarray(self.iter_props.accum_energy).reshape(-1)
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         props_group = group.require_group("props")
         for name in PropsData._fields:
             props_group.create_dataset(
@@ -1119,7 +1121,7 @@ class PropsDataSeries:
                                  data=np.asarray(self.itc_nw))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         props_group = group.get("props")
         iter_props = PropsData(
             *(props_group.get(name)[()] for name in PropsData._fields))
@@ -1156,7 +1158,7 @@ class PropsDataBlocks:
     pair_corr: t.Optional[PairCorrBlocks] = None
     itc: t.Optional[ITCBlocks] = None
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         self.energy.hdf5_export(group.require_group("energy"))
         self.weight.hdf5_export(group.require_group("weight"))
         self.num_walkers.hdf5_export(group.require_group("num_walkers"))
@@ -1176,7 +1178,7 @@ class PropsDataBlocks:
             self.itc.hdf5_export(group.require_group("itc"))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         energy = EnergyBlocks.from_hdf5_data(group.get("energy"))
         weight = WeightBlocks.from_hdf5_data(group.get("weight"))
         num_walkers = NumWalkersBlocks.from_hdf5_data(
@@ -1249,13 +1251,13 @@ class SamplingData:
     blocks: PropsDataBlocks
     series: t.Optional[PropsDataSeries] = None
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         self.blocks.hdf5_export(group.require_group("blocks"))
         if self.series is not None:
             self.series.hdf5_export(group.require_group("series"))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         series_group = group.get("series")
         series = PropsDataSeries.from_hdf5_data(series_group) \
             if series_group is not None else None

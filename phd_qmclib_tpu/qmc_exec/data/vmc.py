@@ -8,10 +8,12 @@ import typing as t
 from collections.abc import Mapping
 from dataclasses import dataclass
 
-import h5py
 import numpy as np
 
 from ...stats import reblock
+
+if t.TYPE_CHECKING:
+    import h5py
 
 __all__ = [
     "EnergyBlocks",
@@ -60,11 +62,11 @@ class PropBlocks(Mapping):
     def reblock(self):
         return reblock.OTFObject.from_non_obj_data(self.totals)
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         group.create_dataset("totals", data=self.totals)
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(totals=group.get("totals")[()])
 
     def __getitem__(self, index):
@@ -255,14 +257,14 @@ class SSFBlocks:
                                     self.mean_error / boson_number,
                                     num_modes=num_modes)
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         self.fdk_sqr_abs_part.hdf5_export(
             group.require_group("fdk_sqr_abs"))
         self.fdk_real_part.hdf5_export(group.require_group("fdk_real"))
         self.fdk_imag_part.hdf5_export(group.require_group("fdk_imag"))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         return cls(
             SSFPartBlocks.from_hdf5_data(group.get("fdk_sqr_abs")),
             SSFPartBlocks.from_hdf5_data(group.get("fdk_real")),
@@ -294,7 +296,7 @@ class PropsDataSeries:
         return np.asarray(self.iter_props.wf_abs_log).reshape(
             -1, *np.asarray(self.iter_props.wf_abs_log).shape[2:])
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         props_group = group.require_group("props")
         for name in PropsData._fields:
             props_group.create_dataset(
@@ -307,7 +309,7 @@ class PropsDataSeries:
             group.create_dataset("pair_corr", data=np.asarray(self.g2))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         props_group = group.get("props")
         iter_props = PropsData(
             *(props_group.get(name)[()] for name in PropsData._fields))
@@ -328,7 +330,7 @@ class PropsDataBlocks:
     one_body_dm: t.Optional[OBDBlocks] = None
     pair_corr: t.Optional[PairCorrBlocks] = None
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         self.energy.hdf5_export(group.require_group("energy"))
         if self.ss_factor is not None:
             self.ss_factor.hdf5_export(group.require_group("ss_factor"))
@@ -339,7 +341,7 @@ class PropsDataBlocks:
             self.pair_corr.hdf5_export(group.require_group("pair_corr"))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         energy = EnergyBlocks.from_hdf5_data(group.get("energy"))
         ssf_group = group.get("ss_factor")
         ss_factor = SSFBlocks.from_hdf5_data(ssf_group) \
@@ -380,13 +382,13 @@ class SamplingData:
     blocks: PropsDataBlocks
     series: t.Optional[PropsDataSeries] = None
 
-    def hdf5_export(self, group: h5py.Group):
+    def hdf5_export(self, group: "h5py.Group"):
         self.blocks.hdf5_export(group.require_group("blocks"))
         if self.series is not None:
             self.series.hdf5_export(group.require_group("series"))
 
     @classmethod
-    def from_hdf5_data(cls, group: h5py.Group):
+    def from_hdf5_data(cls, group: "h5py.Group"):
         series_group = group.get("series")
         series = PropsDataSeries.from_hdf5_data(series_group) \
             if series_group is not None else None

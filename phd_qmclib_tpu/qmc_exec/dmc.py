@@ -13,6 +13,7 @@ from functools import cached_property
 
 import numpy as np
 
+from .. import utils
 from ..models import mrbp
 from ..samplers import dmc as dmc_sampler
 from . import proc as proc_base
@@ -118,7 +119,8 @@ class Proc(proc_base.Proc):
     #: Imaginary-time density-density correlation F(k, tau)
     #: (intermediate scattering function); see :class:`ITCEstSpec`.
     itc_spec: t.Optional[ITCEstSpec] = None
-    #: Compute dtype on device ("float32" for TPU, "float64" on CPU).
+    #: Compute dtype on device ("float32" for production runs on the
+    #: GPU, "float64" for CPU parity tests).
     dtype: str = "float32"
     #: Multi-chip: shard walkers over this many local devices (None =
     #: single device, 0 = all available devices).
@@ -138,13 +140,11 @@ class Proc(proc_base.Proc):
     #: Light checkpoints: skip the imaginary-time-correlation ring
     #: buffer and its pure-estimator accumulators — at the shipped
     #: production config these dominate the checkpoint (285 MB of
-    #: buffer vs ~20 MB of everything else; the round-5 chip run
-    #: measured checkpoint writes costing ~half the driver
-    #: throughput).  A resume then restarts the ITC lag fill (the lag
-    #: counts discount refills BY CONSTRUCTION, and the pure sums and
-    #: counts zero together so the ratio-of-means stays unbiased —
-    #: only pre-checkpoint in-buffer statistics are lost).  Everything
-    #: else resumes bit-exactly.
+    #: buffer vs ~20 MB of everything else).  A resume then restarts
+    #: the ITC lag fill (the lag counts discount refills BY
+    #: CONSTRUCTION, and the pure sums and counts zero together so the
+    #: ratio-of-means stays unbiased — only pre-checkpoint in-buffer
+    #: statistics are lost).  Everything else resumes bit-exactly.
     checkpoint_light: bool = False
     #: Estimator measurement cadence: evaluate density/S(k)/OBDM only
     #: every K-th time step (see ``Sampling.est_every`` — the dynamics
@@ -563,7 +563,7 @@ class Proc(proc_base.Proc):
         """
         import os
 
-        import h5py
+        h5py = utils.require("h5py", "Checkpoints")
 
         from . import io as io_mod
 
@@ -616,7 +616,7 @@ class Proc(proc_base.Proc):
         Legacy v1 checkpoints stored a continuation proc_spec and only
         the walker state — they still load, but estimator windows
         reopen fresh at the resume point (logged)."""
-        import h5py
+        h5py = utils.require("h5py", "Checkpoints")
 
         from . import io as io_mod
 

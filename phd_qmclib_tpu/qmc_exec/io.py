@@ -16,14 +16,17 @@ from abc import ABCMeta, abstractmethod
 from dataclasses import dataclass
 from pathlib import Path
 
-import h5py
 import jax.numpy as jnp
 import numpy as np
 
+from .. import utils
 from ..models import mrbp
 from ..samplers import dmc as dmc_sampler, vmc as vmc_sampler
 from . import dmc as dmc_proc, vmc as vmc_proc
 from .data import dmc as dmc_data, vmc as vmc_data
+
+if t.TYPE_CHECKING:
+    import h5py
 
 __all__ = [
     "HDF5FileHandler",
@@ -32,6 +35,11 @@ __all__ = [
     "VmcHDF5FileHandler",
     "IOHandler",
 ]
+
+
+def _h5py():
+    return utils.require("h5py", "HDF5 input/output")
+
 
 HDF5_FILE_TYPE = "HDF5_FILE"
 
@@ -92,6 +100,7 @@ class HDF5FileHandler(IOHandler, metaclass=ABCMeta):
         ...
 
     def load(self):
+        h5py = _h5py()
         with h5py.File(self.location_path, "r") as h5_file:
             qmc_group = h5_file.get(f"{self.group}/{self.sampling_type}")
             if qmc_group is None:
@@ -106,6 +115,7 @@ class HDF5FileHandler(IOHandler, metaclass=ABCMeta):
         return self.build_result(state, proc_inst, data)
 
     def dump(self, proc_result):
+        h5py = _h5py()
         with h5py.File(self.location_path, "a") as h5_file:
             base_group = h5_file.require_group(self.group)
             sampling_type = self.sampling_type
@@ -127,7 +137,7 @@ class HDF5FileHandler(IOHandler, metaclass=ABCMeta):
 
     # -- proc spec <-> attrs (``qmc_exec/io.py:155-208``) -------------------
 
-    def load_proc(self, group: h5py.Group):
+    def load_proc(self, group: "h5py.Group"):
         model_spec_config = dict(group.get("model_spec").attrs.items())
         proc_config = {"model_spec": model_spec_config}
         density_group = group.get("density_spec")
@@ -155,7 +165,7 @@ class HDF5FileHandler(IOHandler, metaclass=ABCMeta):
         return self.build_proc(proc_config)
 
     @staticmethod
-    def save_proc(config: dict, group: h5py.Group):
+    def save_proc(config: dict, group: "h5py.Group"):
         config = dict(config)
         model_spec = {k: v for k, v in config.pop("model_spec").items()
                       if v is not None}
@@ -192,19 +202,19 @@ class HDF5FileHandler(IOHandler, metaclass=ABCMeta):
         ...
 
     @abstractmethod
-    def load_state(self, group: h5py.Group, proc_inst=None):
+    def load_state(self, group: "h5py.Group", proc_inst=None):
         ...
 
     @abstractmethod
-    def save_state(self, state, group: h5py.Group):
+    def save_state(self, state, group: "h5py.Group"):
         ...
 
     @abstractmethod
-    def load_sampling_data(self, group: h5py.Group):
+    def load_sampling_data(self, group: "h5py.Group"):
         ...
 
     @abstractmethod
-    def save_sampling_data(self, sampling_data, group: h5py.Group):
+    def save_sampling_data(self, sampling_data, group: "h5py.Group"):
         ...
 
 
@@ -236,7 +246,7 @@ class DmcHDF5FileHandler(HDF5FileHandler):
     def build_result(self, state, proc_inst, sampling_data):
         return dmc_proc.ProcResult(state, proc_inst, sampling_data)
 
-    def save_state(self, state: dmc_sampler.State, group: h5py.Group):
+    def save_state(self, state: dmc_sampler.State, group: "h5py.Group"):
         group.create_dataset("confs", data=np.asarray(state.confs))
         props_group = group.require_group("props")
         props_group.create_dataset("energy",
@@ -246,7 +256,7 @@ class DmcHDF5FileHandler(HDF5FileHandler):
         props_group.create_dataset("mask", data=np.asarray(state.masks))
         # The reference stores the branching table ``(cloning_factor,
         # cloning_ref)`` (``qmc_base/dmc.py:381-383``, saved as a
-        # ``(2, Wm)`` array by ``qmc_exec/dmc/io.py:41``).  The TPU
+        # ``(2, Wm)`` array by ``qmc_exec/dmc/io.py:41``).  This
         # state does not need it to resume; write an identity cloning
         # table so a reference-side reader that transports data through
         # ``cloning_ref`` maps each slot to itself.
@@ -289,11 +299,11 @@ class DmcHDF5FileHandler(HDF5FileHandler):
                                  data=np.asarray(state.itc_buf))
             group.attrs["itc_filled"] = int(state.itc_filled)
 
-    def load_state(self, group: h5py.Group,
+    def load_state(self, group: "h5py.Group",
                    proc_inst=None) -> dmc_sampler.State:
         confs = group.get("confs")[()]
         props = group.get("props")
-        if isinstance(props, h5py.Dataset):
+        if isinstance(props, _h5py().Dataset):
             # Legacy reference layout: ``props`` is one ``(3, Wm)``
             # array with rows (energy, weight, mask) instead of the
             # ``props/{energy,weight,mask}`` subdatasets (fallback in
@@ -336,10 +346,10 @@ class DmcHDF5FileHandler(HDF5FileHandler):
             itc_filled=(jnp.int32(attrs["itc_filled"])
                         if itc_ds is not None else None))
 
-    def load_sampling_data(self, group: h5py.Group):
+    def load_sampling_data(self, group: "h5py.Group"):
         return dmc_data.SamplingData.from_hdf5_data(group)
 
-    def save_sampling_data(self, sampling_data, group: h5py.Group):
+    def save_sampling_data(self, sampling_data, group: "h5py.Group"):
         sampling_data.hdf5_export(group)
 
 
@@ -357,7 +367,7 @@ class VmcHDF5FileHandler(HDF5FileHandler):
     def build_result(self, state, proc_inst, sampling_data):
         return vmc_proc.ProcResult(state, proc_inst, sampling_data)
 
-    def save_state(self, state: vmc_sampler.State, group: h5py.Group):
+    def save_state(self, state: vmc_sampler.State, group: "h5py.Group"):
         group.create_dataset("sys_conf", data=np.asarray(state.pos))
         group.create_dataset("wf_abs_log",
                              data=np.asarray(state.wf_abs_log))
@@ -366,7 +376,7 @@ class VmcHDF5FileHandler(HDF5FileHandler):
                              data=np.asarray(state.move_stat))
         group.attrs.update({"num_walkers": state.pos.shape[0]})
 
-    def load_state(self, group: h5py.Group,
+    def load_state(self, group: "h5py.Group",
                    proc_inst=None) -> vmc_sampler.State:
         sys_conf = group.get("sys_conf")[()]
         if "wf_abs_log" not in group:
@@ -397,8 +407,8 @@ class VmcHDF5FileHandler(HDF5FileHandler):
             jnp.asarray(pos), jnp.asarray(wf_abs_log),
             jnp.asarray(energy), jnp.asarray(move_stat), None)
 
-    def load_sampling_data(self, group: h5py.Group):
+    def load_sampling_data(self, group: "h5py.Group"):
         return vmc_data.SamplingData.from_hdf5_data(group)
 
-    def save_sampling_data(self, sampling_data, group: h5py.Group):
+    def save_sampling_data(self, sampling_data, group: "h5py.Group"):
         sampling_data.hdf5_export(group)

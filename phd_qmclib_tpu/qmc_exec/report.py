@@ -11,8 +11,9 @@ CLI-facing "what did this run measure" view (``mrbp-dmc analyze``).
 import typing as t
 import warnings
 
-import h5py
 import numpy as np
+
+from .. import utils
 
 __all__ = ["report_hdf5", "describe_dmc", "describe_vmc",
            "find_result_groups"]
@@ -1258,8 +1259,13 @@ def dt_fit_hdf5(location: str, group_prefix: t.Optional[str] = None,
     return sweep_fit_hdf5(location, "dt", group_prefix, order)
 
 
+def _h5py():
+    return utils.require("h5py", "Reading HDF5 results")
+
+
 def find_result_groups(location: str) -> t.List[t.Tuple[str, str]]:
     """``(group, sampling_type)`` pairs stored in an HDF5 result file."""
+    h5py = _h5py()
     found = []
 
     def visit(name, obj):
@@ -1298,6 +1304,7 @@ def report_hdf5(location: str, group: t.Optional[str] = None,
                            for g, st in find_result_groups(location)) \
             or "none"
         hint = ""
+        h5py = _h5py()
         with h5py.File(location, "r") as fp:
             state_only = []
 

@@ -7,12 +7,12 @@ step, seed) advance as ONE fused device dispatch per block via
 independent :class:`~phd_qmclib_tpu.qmc_exec.dmc.ProcResult` objects —
 each identical in layout to what its procedure's standalone ``exec``
 would produce, bit-identical on the CPU test mesh, and statistically
-identical on TPU f32 (vmap batching can change XLA reduction order;
-see docs/DESIGN.md section 8).
+identical on an accelerator in f32 (vmap batching can change XLA
+reduction order; see docs/DESIGN.md section 8).
 
 The reference has no analog (its scans are sequential shell loops over
-config files).  Measured on a single v5e chip: a 4 x 2048-walker EOS
-scan runs 2.1x faster fused than sequential (BASELINE.md).
+config files).  Underfilled rows batch into one ``R * W`` dispatch;
+the speed-up over sequential runs is not yet measured on the GPU.
 """
 import typing as t
 from dataclasses import dataclass

@@ -24,7 +24,7 @@ This module implements that replay for the serial
   per surviving walker in slot order
   (``qmc_base/jastrow/dmc.py:633-673, 829-951``).
 
-Both record the raw draws so the TPU framework can be driven with the
+Both record the raw draws so the JAX framework can be driven with the
 *identical* noise (``samplers.vmc.Sampling.replay_chain``,
 ``samplers.dmc.Sampling.replay_states``) and compared trajectory-for-
 trajectory at f64 round-off (``tests/test_reference_replay.py``).

@@ -1,7 +1,7 @@
 """Diffusion Monte Carlo: drift-diffusion propagation with birth/death
 branching and population control.
 
-TPU-native re-design of the reference DMC machine
+JAX re-design of the reference DMC machine
 (``/root/reference/src/phd_qmclib/qmc_base/dmc.py:476-1070`` and
 ``qmc_base/jastrow/dmc.py``).  Key design translations:
 
@@ -52,7 +52,6 @@ import numpy as np
 from .. import utils
 from ..models import mrbp
 from ..ops import histogram as hist_ops
-from ..ops import prng as prng_ops
 
 __all__ = [
     "DensityEstSpec",
@@ -65,6 +64,8 @@ __all__ = [
     "SSFEstSpec",
     "State",
     "branching_comb",
+    "itc_lag_products",
+    "itc_walker_lag_products",
 ]
 
 
@@ -333,6 +334,26 @@ class ITCEstSpec:
                 "est_every_mult must be a positive integer")
 
 
+#: The ITC lag products are real f32 sums over up to ~17k walkers; a
+#: GPU's default matmul precision may round the factors to TF32 (about
+#: three significant digits), so they ask for full f32.
+ITC_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def itc_walker_lag_products(buf, reim):
+    """Per-walker ITC lag products ``sum_c buf[w, l, k, c] reim[w, k, c]``
+    of the ``(W, lags, modes, 2)`` ring buffer with the current
+    ``(W, modes, 2)`` amplitudes: ``(W, lags, modes)``."""
+    return jnp.einsum("wlkc,wkc->wlk", buf, reim, precision=ITC_PRECISION)
+
+
+def itc_lag_products(buf, reim, maskf):
+    """Walker sums of :func:`itc_walker_lag_products` weighted by
+    ``maskf (W,)``: ``(lags, modes)``."""
+    return jnp.einsum("wlkc,wkc,w->lk", buf, reim, maskf,
+                      precision=ITC_PRECISION)
+
+
 def branching_comb(weights: jnp.ndarray, num_walkers: jnp.ndarray,
                    key=None, *, u: t.Optional[jnp.ndarray] = None) \
         -> t.Tuple[jnp.ndarray, jnp.ndarray]:
@@ -355,16 +376,13 @@ def branching_comb(weights: jnp.ndarray, num_walkers: jnp.ndarray,
     n_clones = jnp.where(valid, n_clones, 0)
     cum = jnp.cumsum(n_clones)
     new_num = jnp.minimum(cum[-1], max_w)
-    # parent[slot] = #{i : cum[i] <= slot} (== searchsorted right, but
-    # counting costs one pass where TPU searchsorted costs ~15 gather
-    # rounds; bit-identical outputs, measured 2.4x faster at 17k
-    # walkers on v5e).  The count ``marks[v] = #{i : cum[i] = v}`` is
-    # an integer histogram: an XLA scatter-add serializes on the
-    # duplicate indices (+107 us at 17408 slots in the step scan, the
-    # single most expensive tail op), so build it like
-    # ``ops/histogram.py`` — factorize ``v = q R + r`` into two narrow
-    # one-hots whose contraction is ONE f32 matmul on the MXU (counts
-    # <= max_w < 2^24 are exact in f32; bit-identical marks).
+    # parent[slot] = #{i : cum[i] <= slot} (== searchsorted right,
+    # bit-identical; one counting pass instead of a binary search).  The
+    # count ``marks[v] = #{i : cum[i] = v}`` is an integer histogram,
+    # built like ``ops/histogram.py`` instead of a scatter-add (which
+    # serializes on duplicate indices): factorize ``v = q R + r`` into
+    # two narrow one-hots whose contraction is ONE matmul.  Counts
+    # <= max_w < 2^24 are exact in f32.
     idx = jnp.minimum(cum, max_w)
     r_split = 128
     q_count = (max_w + 1 + r_split - 1) // r_split
@@ -374,8 +392,11 @@ def branching_comb(weights: jnp.ndarray, num_walkers: jnp.ndarray,
     fq = (idx[:, None] // r_split
           == jnp.arange(q_count)).astype(fdtype)
     fr = (idx[:, None] % r_split == jnp.arange(r_split)).astype(fdtype)
+    # 0/1 factors and integer sums are exact under any matmul
+    # precision (TF32 and bf16 represent 0 and 1 exactly).
     marks2d = jnp.einsum("iq,ir->qr", fq, fr,
-                         preferred_element_type=fdtype)
+                         preferred_element_type=fdtype,
+                         precision=jax.lax.Precision.DEFAULT)
     marks = marks2d.reshape(q_count * r_split)[:max_w].astype(jnp.int32)
     parent = jnp.clip(jnp.cumsum(marks), 0, max_w - 1)
     return parent, new_num
@@ -422,7 +443,7 @@ class Sampling:
     itc_est_spec: t.Optional[ITCEstSpec] = None
     #: Device mesh for multi-chip runs: the walker axis shards over
     #: ``mesh_axis``; branching is per-shard, population control global
-    #: (psum over ICI).  ``None`` = single device.
+    #: (psum over the mesh).  ``None`` = single device.
     mesh: t.Optional[jax.sharding.Mesh] = None
     mesh_axis: str = "walkers"
     #: Every K blocks, redistribute the valid walkers evenly across the
@@ -431,12 +452,6 @@ class Sampling:
     #: buffer cap and silently clip its comb (docs/DESIGN.md section 4);
     #: ``None`` disables rebalancing (single-device runs never need it).
     rebalance_every: t.Optional[int] = None
-    #: Diffusion-noise source: ``None`` = auto (TPU hardware-PRNG
-    #: Box-Muller on non-CPU backends - exact normals, ~35% cheaper
-    #: than the threefry pass; see ``ops/prng.py``), ``True``/``False``
-    #: force.  Only affects f32 runs; the stream differs from threefry's
-    #: (statistically equivalent).
-    hw_normals: t.Optional[bool] = None
     #: Center-of-mass imaginary-time diffusion estimator: accumulate
     #: each walker's CM displacement (drift + noise, pre-recast, so
     #: windings count) through the branching ancestry and emit per-step
@@ -949,8 +964,6 @@ class Sampling:
         itc_pure = use_itc and itc_spec.as_pure_est
         obd_offsets = np.asarray(self.obd_pos_offsets) if use_obd else None
         use_cmd = self.cm_diffusion_est
-        use_hw_normals = self.hw_normals if self.hw_normals is not None \
-            else jax.default_backend() != "cpu"
 
         def _psum(x):
             return jax.lax.psum(x, axis_name) if axis_name else x
@@ -994,8 +1007,8 @@ class Sampling:
 
             # 4) Estimators on the post-branching ensemble.  Outputs are
             #    SHARD-LOCAL sums; the per-block runner reduces them over
-            #    the mesh once per block (per-step collectives would put
-            #    nts times more latency on the ICI; cf. SURVEY §5.8).
+            #    the mesh once per block (per-step collectives would pay
+            #    nts times more collective latency; cf. SURVEY §5.8).
             est_out = {}
             new_extra = {}
             # Pure-estimator ancestry transport under a measurement
@@ -1032,14 +1045,10 @@ class Sampling:
             if use_density and not transport_only:
                 num_bins = density_spec.num_bins
                 bin_size = (cfc.model_params.supercell_size / num_bins)
-                # MXU-factorized one-hot histogram (ops/histogram.py):
-                # an XLA scatter costs as much as the whole pairwise
-                # physics (15 ms/step at 17k x 128 on v5e, rejected
-                # round 1); the fused one-hot compare fixed that but
-                # materializes the (W, N, B) broadcast (~0.83 ms);
-                # factorizing the one-hot into a batched matmul puts
-                # the count contraction on the MXU (~0.28 ms) with
-                # bit-identical integer counts.
+                # Factorized one-hot histogram (ops/histogram.py): a
+                # batched matmul instead of a scatter-add or the full
+                # (W, N, B) one-hot broadcast, with bit-identical
+                # integer counts.
                 hist = hist_ops.walker_histogram(cpos, bin_size,
                                                  num_bins)
                 hist = jnp.where(valid[:, None], hist, 0.0)
@@ -1257,9 +1266,8 @@ class Sampling:
                             # counts; sampling divides by the number
                             # of contributions, exactly the pure-
                             # density discipline.
-                            prod_w = jnp.einsum(
-                                "wlkc,wkc->wlk", buf, reim) \
-                                * maskf[:, None, None]
+                            prod_w = itc_walker_lag_products(
+                                buf, reim) * maskf[:, None, None]
                             sq_w = jnp.where(valid[:, None], sq, 0.0)
                             contrib = jnp.concatenate(
                                 [sq_w[:, None], prod_w], axis=1)
@@ -1282,8 +1290,8 @@ class Sampling:
                             aux, aux_cnt = aux_p, aux_cnt_p
                             lag0 = jnp.where(valid[:, None], sq,
                                              0.0).sum(axis=0)
-                            lag_prod = jnp.einsum("wlkc,wkc,w->lk",
-                                                  buf, reim, maskf)
+                            lag_prod = itc_lag_products(buf, reim,
+                                                        maskf)
                             sums = jnp.concatenate(
                                 [lag0[None], lag_prod], axis=0)
                             counts = jnp.concatenate([nwf[None],
@@ -1346,17 +1354,6 @@ class Sampling:
             #    (jastrow/dmc.py:742-827).
             if injected_noise:
                 xi = key["xi"]
-            elif use_hw_normals and cpos.dtype == jnp.float32 \
-                    and cpos.shape[0] % 2 == 0:
-                # TPU hardware-PRNG Box-Muller normals (ops/prng.py):
-                # exact N(0,1), ~35% cheaper than the threefry pass at
-                # 17k x 128.  Seed derives from the step key (plus the
-                # key's own per-shard/step folds), so streams stay
-                # decorrelated exactly like the threefry path.
-                kd = jax.random.key_data(k_diff)
-                seed = (kd[0] ^ (kd[1] * jnp.uint32(2654435761))) \
-                    .astype(jnp.int32)
-                xi = sigma * prng_ops.normal_pallas(seed, cpos.shape)
             else:
                 xi = sigma * jax.random.normal(k_diff, cpos.shape,
                                                dtype=cpos.dtype)
@@ -1592,7 +1589,8 @@ class Sampling:
                 est["itc_nw"] = est["itc_nw"][m - 1::m]
             if axis_name is not None and est:
                 # Shard-local estimator sums reduce over the mesh ONCE
-                # per block (nts-fold less ICI latency than per-step).
+                # per block (nts-fold less collective latency than
+                # per-step).
                 est = jax.tree.map(
                     lambda x: jax.lax.psum(x, axis_name), est)
             props_data = PropsData(*props)
@@ -1609,8 +1607,8 @@ class Sampling:
             return jax.jit(run_block,
                            static_argnames=("num_time_steps_block",))
 
-        # Multi-chip: walker axis sharded over the mesh; ensemble
-        # reductions ride the ICI as psums inside the step.
+        # Multi-device: walker axis sharded over the mesh; ensemble
+        # reductions are psums inside the step.
         P = jax.sharding.PartitionSpec
         ax = self.mesh_axis
         state_spec = State(

@@ -1,6 +1,6 @@
 """Variational Monte Carlo: Metropolis-Hastings sampling of ``|psi|^2``.
 
-TPU-native re-design of the reference VMC machine
+JAX re-design of the reference VMC machine
 (``/root/reference/src/phd_qmclib/qmc_base/vmc.py:418-902`` and its
 Jastrow/mrbp bindings).  Differences by design:
 

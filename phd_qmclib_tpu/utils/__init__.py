@@ -1,11 +1,12 @@
 """Foundation utilities (timezone-aware timestamps, RNG seeding,
 parameter-sweep meshes, dict helpers).
 
-TPU-native counterpart of the reference foundation layer
+JAX counterpart of the reference foundation layer
 (``/root/reference/src/phd_qmclib/utils.py``).  The reference's
 ``CachedProperty``/numba-env machinery has no analog here: JAX functions
 are pure and cached by ``jax.jit`` itself.
 """
+import importlib
 import itertools
 import os
 import time
@@ -19,8 +20,30 @@ __all__ = [
     "items_to_mesh",
     "mapping_to_mesh",
     "now",
+    "require",
     "strict_update",
 ]
+
+#: pip distribution names of the optional packages whose import name
+#: differs.
+_DISTRIBUTION = {"yaml": "pyyaml"}
+
+
+def require(module: str, purpose: str):
+    """Import an optional package for ``purpose``, or raise an
+    ``ImportError`` that names the package to install.
+
+    The compute path (samplers, ``Proc.exec`` without file output)
+    needs none of them; HDF5 files, YAML configs, Jinja2 templates and
+    the CLI do.
+    """
+    try:
+        return importlib.import_module(module)
+    except ImportError as exc:
+        dist = _DISTRIBUTION.get(module, module)
+        raise ImportError(
+            f"{purpose} needs the '{dist}' package, which is not "
+            f"installed") from exc
 
 #: Maximum seed value: the reference caps seeds at uint32 range
 #: (``/root/reference/src/phd_qmclib/utils.py:250-266``).

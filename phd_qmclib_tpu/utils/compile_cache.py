@@ -1,16 +1,18 @@
-"""Persistent-compile-cache hygiene.
+"""Persistent-compile-cache location and hygiene.
 
-JAX's on-disk compilation cache (``jax_compilation_cache_dir``) writes
-entries with a plain ``Path.write_bytes`` (``jax/_src/lru_cache.py``,
-``LRUCache.put``), which is NOT atomic: a process killed mid-write — a
-watchdog timeout, a CI kill, ctrl-C — leaves a truncated entry on disk.
-Reading such an entry later does not fail gracefully: XLA's
-``deserialize_executable`` hard-aborts the whole process (C++ CHECK),
-so one interrupted run can permanently break every subsequent run that
-shares the cache directory.  Both our test suite (``tests/conftest.py``)
-and the benchmark harness (``bench.py``, whose parent watchdog kills
-hung children BY DESIGN) share cache directories across processes, so
-this is a live failure mode, observed in practice.
+One place decides where compiled executables are cached:
+``$JAX_COMPILATION_CACHE_DIR`` when it is set, otherwise the fixed
+directory ``<checkout>/.jax_cache``.  The path is part of what makes a
+later process find an entry again, so it is never derived from a
+temporary name, a pid or the time.
+
+JAX's on-disk compilation cache writes entries with a plain
+``Path.write_bytes`` (``jax/_src/lru_cache.py``, ``LRUCache.put``),
+which is NOT atomic: a process killed mid-write (a timeout, a CI kill,
+ctrl-C) leaves a truncated entry on disk.  Reading such an entry later
+does not fail gracefully: XLA's ``deserialize_executable`` hard-aborts
+the whole process (C++ CHECK), so one interrupted run can permanently
+break every later run that shares the cache directory.
 
 ``enable_persistent_cache`` turns the cache on AND makes entry writes
 atomic (same-directory temp file + ``os.replace``), with a startup
@@ -23,17 +25,21 @@ import warnings
 
 import jax
 
-__all__ = ["enable_persistent_cache", "harden_cache_writes"]
+__all__ = ["cache_dir", "enable_persistent_cache", "harden_cache_writes"]
+
+#: Cache directory used when ``JAX_COMPILATION_CACHE_DIR`` is unset.
+DEFAULT_CACHE_DIR = os.path.abspath(os.path.join(
+    os.path.dirname(__file__), os.pardir, os.pardir, ".jax_cache"))
 
 
-def _sweep(cache_dir: str) -> None:
+def _sweep(directory: str) -> None:
     """Remove leftover temp files / empty entries from crashed runs."""
     try:
-        names = os.listdir(cache_dir)
+        names = os.listdir(directory)
     except OSError:
         return
     for name in names:
-        path = os.path.join(cache_dir, name)
+        path = os.path.join(directory, name)
         try:
             if ".__tmp." in name or os.path.getsize(path) == 0:
                 os.unlink(path)
@@ -93,12 +99,20 @@ def harden_cache_writes() -> None:
     _lru.LRUCache.put = atomic_put
 
 
-def enable_persistent_cache(cache_dir: str,
-                            min_compile_time_secs: float = 0.2) -> None:
-    """Enable the on-disk compile cache at ``cache_dir``, hardened."""
-    os.makedirs(cache_dir, exist_ok=True)
-    _sweep(cache_dir)
+def cache_dir() -> str:
+    """``$JAX_COMPILATION_CACHE_DIR`` if set, else
+    ``<checkout>/.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_CACHE_DIR
+
+
+def enable_persistent_cache(min_compile_time_secs: float = 0.2) -> str:
+    """Enable the hardened on-disk compile cache at :func:`cache_dir`
+    and return that directory."""
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    _sweep(path)
     harden_cache_writes()
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
                       min_compile_time_secs)
+    return path

@@ -9,7 +9,7 @@ variational parameter, and the weighted variance of the local energy is
 minimized with ``scipy.optimize.differential_evolution``.
 
 The reference evaluates configurations through a ``dask.bag`` thread/
-process pool (``mrbp_qmc/model.py:886-925``); on TPU the whole
+process pool (``mrbp_qmc/model.py:886-925``); here the whole
 configuration set evaluates in ONE fused, batched device call, and -
 because the variational parameter travels in the params pytree - the
 kernel compiles exactly once for the entire optimization.
@@ -80,7 +80,7 @@ class CSWFOptimizer:
         """Jitted batched ``(log_psi, E_L)`` over the config set.
 
         Compiled once: the variational parameter flows through the
-        params pytree (the TPU analog of the reference's dask-pooled
+        params pytree (the JAX analog of the reference's dask-pooled
         ``_threaded_func``, ``mrbp_qmc/model.py:863-900``).
         """
         funcs = mrbp.core_funcs(self.spec)

@@ -27,7 +27,7 @@ files are committed under ``tests/fixtures/``):
 
 The recovered states therefore double as a kernel-parity certificate:
 reference-numba-produced walker ensembles whose stored local energies
-and drifts the TPU kernels reproduce to f64 round-off
+and drifts the JAX kernels reproduce to f64 round-off
 (``tests/qmc_exec/test_reference_interop.py``).
 """
 import pathlib

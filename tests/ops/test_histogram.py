@@ -1,39 +1,10 @@
-"""Pallas per-walker histogram: bit-equal to the one-hot formulation."""
+"""Factorized per-walker histogram: bit-equal to the one-hot formulation."""
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
 from phd_qmclib_tpu.ops import histogram as hg
-
-
-@pytest.mark.parametrize("w,n,b,tw", [(96, 128, 128, 32),
-                                      (64, 16, 12, 64),
-                                      (10, 8, 5, 4)])
-def test_pallas_matches_onehot_exactly(w, n, b, tw):
-    rng = np.random.default_rng(w + n)
-    sc = float(b)
-    pos = jnp.asarray(rng.uniform(0, sc, (w, n)), dtype=jnp.float32)
-    bs = jnp.float32(sc / b)
-    a = np.asarray(hg.walker_histogram_onehot(pos, bs, b))
-    out = np.asarray(hg.walker_histogram_pallas(pos, bs, b, tw=tw,
-                                                interpret=True))
-    np.testing.assert_array_equal(a, out)
-    np.testing.assert_array_equal(a.sum(axis=1), n)
-
-
-def test_bin_edges_and_clipping_match():
-    b, sc = 16, 16.0
-    # Exact edges, the last edge, and slightly-out-of-range values that
-    # the clip must send to the boundary bins identically.
-    vals = np.concatenate([np.arange(b) * (sc / b), [sc - 1e-6, 0.0],
-                           [15.9999990]])
-    pos = jnp.asarray(np.tile(vals, (4, 1)), dtype=jnp.float32)
-    bs = jnp.float32(sc / b)
-    a = np.asarray(hg.walker_histogram_onehot(pos, bs, b))
-    out = np.asarray(hg.walker_histogram_pallas(pos, bs, b, tw=2,
-                                                interpret=True))
-    np.testing.assert_array_equal(a, out)
 
 
 _SLOW = pytest.mark.slow  # re-tiered r5: the production shape and one

@@ -129,7 +129,7 @@ def test_checkpoint_mid_pfw_window_resume_bit_exact(tmp_path,
 
 
 def test_block_fn_compiles_once():
-    """The jit-retrace discipline guard (the TPU analog of the
+    """The jit-retrace discipline guard (the JAX analog of the
     reference's numba memory-leak monitoring,
     ``tests/mrbp_qmc/test_dmc.py:223``): iterating blocks must not
     retrace or recompile the block kernel."""

@@ -14,7 +14,7 @@ image, and they exercise:
 * ``Proc.from_config`` absorbing numba-era keys (``jit_parallel``,
   ``jit_fastmath``);
 * kernel parity: the stored walker energies/drifts and wavefunction
-  logs must be reproduced by the TPU kernels at f64 round-off;
+  logs must be reproduced by the JAX kernels at f64 round-off;
 * the statistics layer recomputing the reference's block means;
 * resuming a run from a reference-written state.
 """
@@ -105,7 +105,7 @@ def test_dmc_fixture_density_statistics():
 @pytest.mark.parametrize("name,group", DMC_FIXTURES)
 def test_dmc_state_kernel_parity(name, group):
     """The reference's stored walker energies/drifts are reproduced by
-    the TPU kernels at f64 round-off - direct numerical contact with
+    the JAX kernels at f64 round-off - direct numerical contact with
     the reference's numba kernels (``qmc_base/jastrow/model.py:777-856``)."""
     handler = DmcHDF5FileHandler(str(FIXTURES / name), group)
     result = handler.load()
@@ -132,7 +132,7 @@ def test_vmc_fixture_full_load_and_wf_parity(name, group):
     assert proc.model_spec.boson_number == 24
 
     # Legacy single-config state: pos batched to (1, N); the stored
-    # wf_abs_log attr must match the TPU kernel; the energy (absent in
+    # wf_abs_log attr must match the JAX kernel; the energy (absent in
     # the reference layout) must have been recomputed.
     state = result.state
     assert state.pos.shape == (1, 24)

@@ -102,7 +102,7 @@ class TestBranchingComb:
 
     def test_parent_matches_searchsorted_oracle(self):
         # Fast tier: three fixed buffer shapes that pin the corner
-        # cases of the MXU-factorized marks histogram — tiny (<128),
+        # cases of the factorized marks histogram — tiny (<128),
         # non-multiple-of-128 (exercises the q*128+r factorization
         # padding), and an exact multiple.  The slow tier widens this
         # to a randomized shape sweep.

@@ -8,7 +8,7 @@ phonon Jastrow family contains the exact TG wavefunction (beta -> 1,
 am -> 1), so DMC must reproduce the analytic value to high precision -
 a full-pipeline physics test with zero free parameters.
 
-(v5e check at N=5, 8192 walkers: E/N = 3.1558(1) vs analytic 3.1557.)
+(f32 check at N=5, 8192 walkers: E/N = 3.1558(1) vs analytic 3.1557.)
 """
 import numpy as np
 import pytest

@@ -5,7 +5,7 @@ The reference samples with numba's clone of NumPy's legacy MT19937
 compatibility with NumPy for the same seed).
 :mod:`phd_qmclib_tpu.reference_replay` re-enacts the reference's exact
 per-step draw order in pure NumPy; these tests then feed the *identical*
-pre-drawn noise into the TPU framework's samplers and assert the
+pre-drawn noise into the JAX framework's samplers and assert the
 trajectories agree bit-for-bit (positions) / at f64 round-off
 (wavefunction, energies, weights), with every discrete decision
 (Metropolis accepts, branching tables) matching exactly.

@@ -62,3 +62,29 @@ def test_persistent_cache_hygiene(tmp_path):
     compile_cache._sweep(str(tmp_path))
     names = {p.name for p in tmp_path.iterdir()}
     assert names == {"k1-cache"}
+
+
+@pytest.mark.parametrize("env_set", [True, False], ids=["env", "default"])
+def test_persistent_cache_location(env_set, tmp_path, monkeypatch):
+    """``$JAX_COMPILATION_CACHE_DIR`` when set, else the checkout's fixed
+    ``.jax_cache`` — never a per-process or temporary path."""
+    import os
+
+    import jax
+
+    from phd_qmclib_tpu.utils import compile_cache
+
+    if env_set:
+        expected = str(tmp_path / "cache")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", expected)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        expected = os.path.abspath(os.path.join(
+            os.path.dirname(__file__), os.pardir, ".jax_cache"))
+    previous = jax.config.jax_compilation_cache_dir
+    try:
+        assert compile_cache.enable_persistent_cache() == expected
+        assert jax.config.jax_compilation_cache_dir == expected
+        assert os.path.isdir(expected)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", previous)

@@ -6,6 +6,7 @@ import time
 
 import pytest
 
+from phd_qmclib_tpu.utils.compile_cache import cache_dir
 from tests.conftest import FAST_TIER_BUDGET_S, FAST_TIER_MIN_TESTS
 
 
@@ -40,8 +41,7 @@ def test_fast_tier_stays_under_budget(request):
         pytest.skip(f"host contended during the run (load "
                     f"{load1:.1f}/{load5:.1f}) — the budget is an "
                     f"idle-host contract")
-    warm = os.path.isdir(os.path.join(
-        os.path.dirname(__file__), os.pardir, ".jax_cache_cpu"))
+    warm = os.path.isdir(cache_dir())
     if not warm:  # pragma: no cover
         pytest.skip("cold compile cache — first run is not under "
                     "contract")
